@@ -1,14 +1,16 @@
-# usher_tpu container: the TPU-native UShER-capability suite.
+# usher_jax container: the UShER-capability suite on JAX.
 # Mirrors the reference's Dockerfile + install/installUbuntu.sh role
 # (/root/reference/Dockerfile): a self-contained image whose build runs
 # the full test pyramid (unit + parity tests on the 8-device virtual CPU
-# mesh, vendored smoke goldens, multi-chip dryrun).
+# mesh, vendored smoke goldens, multi-device dryrun).
 #
-#   docker build -t usher-tpu .
-#   docker run usher-tpu usher-tpu --help
+#   docker build -t usher-jax .
+#   docker run usher-jax usher-jax --help
 #
-# On real TPU hosts, install the matching libtpu-enabled jax instead:
-#   pip install 'jax[tpu]' -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+# On NVIDIA GPU hosts, install jax with its CUDA plugin instead:
+#   pip install 'jax[cuda12]'
+# (or build FROM an image with the CUDA runtime and run ./install/install.sh
+# --cuda), and check the card with `python chip_smoke.py`.
 
 FROM python:3.11-slim
 
@@ -16,7 +18,7 @@ RUN apt-get update \
     && apt-get install -y --no-install-recommends g++ zlib1g-dev \
     && rm -rf /var/lib/apt/lists/*
 
-WORKDIR /opt/usher_tpu
+WORKDIR /opt/usher_jax
 COPY . .
 
 RUN pip install --no-cache-dir jax flax optax chex einops numpy pytest \
@@ -28,4 +30,4 @@ RUN pip install --no-cache-dir jax flax optax chex einops numpy pytest \
 RUN ./ci.sh
 
 ENTRYPOINT []
-CMD ["usher-tpu", "--help"]
+CMD ["usher-jax", "--help"]

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
-# CI for usher_tpu: unit+parity tests on the virtual CPU mesh, the smoke
-# end-to-end workflow, and the multi-chip dryrun.  (The reference's CI only
+# CI for usher_jax: unit+parity tests on the virtual CPU mesh, the smoke
+# end-to-end workflow, and the multi-device dryrun.  (The reference's CI only
 # runs --help on each binary, .github/workflows/cmake.yml:19-25; this runs
 # the real test pyramid.)
 #
@@ -27,10 +27,10 @@ if [ -f "$REF/test/global_phylo.nh" ]; then
   echo "== smoke end-to-end (reference fixtures) =="
   TMP=$(mktemp -d)
   trap 'rm -rf "$TMP"' EXIT
-  USHER_TPU_PLATFORM=${USHER_CI_PLATFORM:-cpu} python -m usher_tpu.cli.usher_cli -t "$REF/test/global_phylo.nh" \
+  JAX_PLATFORMS=${USHER_CI_PLATFORM:-cpu} python -m usher_jax.cli.usher_cli -t "$REF/test/global_phylo.nh" \
       -v "$REF/test/global_samples.vcf" -o "$TMP/out.pb" -d "$TMP/b" \
       --mesh-devices 0 2> "$TMP/build.log"
-  USHER_TPU_PLATFORM=${USHER_CI_PLATFORM:-cpu} python -m usher_tpu.cli.usher_cli -i "$TMP/out.pb" \
+  JAX_PLATFORMS=${USHER_CI_PLATFORM:-cpu} python -m usher_jax.cli.usher_cli -i "$TMP/out.pb" \
       -v "$REF/test/new_samples.vcf" -o "$TMP/out2.pb" -d "$TMP/p" \
       --mesh-devices 0 2> "$TMP/place.log"
   test -s "$TMP/p/placement_stats.tsv"
@@ -41,7 +41,7 @@ if [ -f "$REF/test/global_phylo.nh" ]; then
   echo "== smoke end-to-end on the 8-device virtual mesh (must match the =="
   echo "== single-device goldens byte-for-byte) =="
   XLA_FLAGS="--xla_force_host_platform_device_count=8" \
-  USHER_TPU_PLATFORM=${USHER_CI_PLATFORM:-cpu} python -m usher_tpu.cli.usher_cli -i "$TMP/out.pb" \
+  JAX_PLATFORMS=${USHER_CI_PLATFORM:-cpu} python -m usher_jax.cli.usher_cli -i "$TMP/out.pb" \
       -v "$REF/test/new_samples.vcf" -o "$TMP/out3.pb" -d "$TMP/pm" \
       --mesh-devices 8 2> "$TMP/place_mesh.log"
   cmp "$TMP/pm/placement_stats.tsv" tests/goldens/smoke_placement_stats.tsv
@@ -49,7 +49,7 @@ if [ -f "$REF/test/global_phylo.nh" ]; then
   echo "mesh smoke goldens OK"
 
   echo "== workflow smoke (usher + systematic run types) =="
-  USHER_TPU_PLATFORM=${USHER_CI_PLATFORM:-cpu} python workflows/run.py --runtype systematic \
+  JAX_PLATFORMS=${USHER_CI_PLATFORM:-cpu} python workflows/run.py --runtype systematic \
       --vcf "$REF/test/new_samples.vcf" --pb "$TMP/out.pb" \
       --outdir "$TMP/wf" 2> "$TMP/wf.log"
   test -s "$TMP/wf/parsimony_report.txt"
@@ -58,14 +58,13 @@ else
   echo "== skipping reference-fixture smoke stages ($REF/test not present) =="
 fi
 
-echo "== multi-chip dryrun (8 virtual devices) =="
-XLA_FLAGS="--xla_force_host_platform_device_count=8" python -c "
-import os; os.environ['JAX_PLATFORMS']='cpu'
-import jax; jax.config.update('jax_platforms','cpu')
+echo "== multi-device dryrun (8 virtual devices) =="
+XLA_FLAGS="--xla_force_host_platform_device_count=8" JAX_PLATFORMS=cpu python -c "
+import jax
 import sys; sys.path.insert(0, '.')
 from __graft_entry__ import entry, dryrun_multichip
 fn, args = entry(); jax.jit(fn)(*args)
 dryrun_multichip(8)
-print('multichip dryrun OK')"
+print('multi-device dryrun OK')"
 
 echo "CI PASSED"

@@ -1,11 +1,11 @@
 from setuptools import Extension, setup
 
 setup(
-    name="usher-tpu",
+    name="usher-jax",
     ext_modules=[
         Extension(
-            "usher_tpu.native._usher_native",
-            sources=["usher_tpu/native/src/usher_native.cpp"],
+            "usher_jax.native._usher_native",
+            sources=["usher_jax/native/src/usher_native.cpp"],
             libraries=["z"],
             extra_compile_args=["-O3", "-std=c++17"],
         )

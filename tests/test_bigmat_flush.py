@@ -9,7 +9,7 @@ targets, boundary-sharing chains) and check the full derived state.
 import numpy as np
 import pytest
 
-from usher_tpu.core.bigmat import BigMAT
+from usher_jax.core.bigmat import BigMAT
 
 NIBBLES = np.array([1, 2, 4, 8], dtype=np.uint8)
 
@@ -72,8 +72,7 @@ def test_child_run_matches_sequential(seed):
 
 def test_chain_tree_appends_linear():
     """Depth-heavy chain tree: appends through the vectorized run keep
-    exact DFS/leaf bookkeeping (the depth-quadratic host-walk concern,
-    VERDICT r3)."""
+    exact DFS/leaf bookkeeping (the depth-quadratic host-walk concern)."""
     depth = 600
     parent = np.arange(-1, depth - 1, dtype=np.int32)
     parent[0] = 0

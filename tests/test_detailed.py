@@ -10,12 +10,12 @@ import pytest
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
-from usher_tpu.cli.usher_cli import main as usher_main
-from usher_tpu.io.detailed import (is_detailed_checkpoint,
+from usher_jax.cli.usher_cli import main as usher_main
+from usher_jax.io.detailed import (is_detailed_checkpoint,
                                    load_detailed_mutations,
                                    save_detailed_mutations)
-from usher_tpu.io.newick import write_newick
-from usher_tpu.io.pbio import load_mat_pb
+from usher_jax.io.newick import write_newick
+from usher_jax.io.pbio import load_mat_pb
 
 SCRIPTS = REFERENCE_SCRIPTS_DIR
 
@@ -77,7 +77,7 @@ def test_sniffer(small_mat, tmp_path):
 
 
 def test_matoptimize_resume_from_detailed(small_mat, tmp_path):
-    from usher_tpu.cli.matoptimize_cli import main as opt_main
+    from usher_jax.cli.matoptimize_cli import main as opt_main
     T = load_mat_pb(small_mat)
     ckpt = str(tmp_path / "ck4.detailed")
     save_detailed_mutations(T, ckpt, changed_ids={"a"})
@@ -90,8 +90,8 @@ def test_matoptimize_resume_from_detailed(small_mat, tmp_path):
 
 def test_multiblock_stream(tmp_path, monkeypatch):
     """Force multiple compressed blocks to exercise the parallel loader."""
-    import usher_tpu.io.detailed as det
-    from usher_tpu.core.tree import Mutation, Tree
+    import usher_jax.io.detailed as det
+    from usher_jax.core.tree import Mutation, Tree
     monkeypatch.setattr(det, "BLOCK_SIZE", 256)
     T = Tree()
     root = T.create_node("root", None, 0.0)
@@ -106,7 +106,7 @@ def test_multiblock_stream(tmp_path, monkeypatch):
 
 
 def test_roundtrip_with_annotations_and_condensed(small_mat, tmp_path):
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.io.pbio import load_mat_pb
     T = load_mat_pb(small_mat)
     for i, n in enumerate(T.depth_first_expansion()):
         n.clade_annotations = [f"clade{i % 3}", ""] if i % 2 else []

@@ -3,7 +3,7 @@
 The --pb-direct driver resolves each sample against the tree WITH all
 previous samples applied (reference classic-usher semantics,
 usher_common.cpp:310).  The batched fast path (_BatchState) must be
-byte-equivalent to the literal per-sample loop (USHER_TPU_DIRECT_SEQ=1
+byte-equivalent to the literal per-sample loop (USHER_JAX_DIRECT_SEQ=1
 forces a full host re-score for every post-apply sample).  Workloads are
 adversarial: near-duplicate samples that pile onto the same nodes, exact
 mutation-set duplicates (ties + splits of fresh nodes), ambiguous and
@@ -15,9 +15,9 @@ import os
 import numpy as np
 import pytest
 
-from usher_tpu.core.tree import Mutation, MissingSample
-from usher_tpu.io import pb_arrays as pa
-from usher_tpu.placement.direct import DirectOptions, DirectPlacer
+from usher_jax.core.tree import Mutation, MissingSample
+from usher_jax.io import pb_arrays as pa
+from usher_jax.placement.direct import DirectOptions, DirectPlacer
 
 NIBBLES = np.array([1, 2, 4, 8], dtype=np.uint8)
 
@@ -121,19 +121,19 @@ def adversarial_samples(rng, ma, state, is_leaf, n_samples):
 
 def run_mode(tmp_path, pb, samples, outname, seq: bool, batch_size: int):
     outdir = tmp_path / outname
-    old = os.environ.pop("USHER_TPU_DIRECT_SEQ", None)
+    old = os.environ.pop("USHER_JAX_DIRECT_SEQ", None)
     try:
         if seq:
-            os.environ["USHER_TPU_DIRECT_SEQ"] = "1"
+            os.environ["USHER_JAX_DIRECT_SEQ"] = "1"
         placer = DirectPlacer(str(pb))
         placer.missing = [_copy_sample(s) for s in samples]
         placer.place_all(DirectOptions(outdir=str(outdir),
                                        batch_size=batch_size))
     finally:
         if old is not None:
-            os.environ["USHER_TPU_DIRECT_SEQ"] = old
+            os.environ["USHER_JAX_DIRECT_SEQ"] = old
         else:
-            os.environ.pop("USHER_TPU_DIRECT_SEQ", None)
+            os.environ.pop("USHER_JAX_DIRECT_SEQ", None)
     return {f: (outdir / f).read_text()
             for f in ("placement_stats.tsv", "final-tree.nh",
                       "mutation-paths.txt")}
@@ -216,7 +216,7 @@ def test_direct_matches_tree_driver_randomized(tmp_path, seed):
     vcf = tmp_path / "s.vcf"
     write_vcf_for(vcf, ma, samples)
 
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
     d1, d2 = str(tmp_path / "t"), str(tmp_path / "a")
     assert usher_main(["-i", str(pb), "-v", str(vcf), "-d", d1,
                        "--bigmat", "--mesh-devices", "0"]) == 0
@@ -245,7 +245,7 @@ def test_direct_sort_flags_match_tree_driver(tmp_path, flags):
     vcf = tmp_path / "s.vcf"
     write_vcf_for(vcf, ma, samples)
 
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
     d1, d2 = str(tmp_path / "t"), str(tmp_path / "a")
     assert usher_main(["-i", str(pb), "-v", str(vcf), "-d", d1,
                        "--bigmat", "--mesh-devices", "0"] + flags) == 0
@@ -271,7 +271,7 @@ def test_direct_parsimony_scores_match_tree_driver(tmp_path):
     vcf = tmp_path / "s.vcf"
     write_vcf_for(vcf, ma, samples)
 
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
     d1, d2 = str(tmp_path / "t"), str(tmp_path / "a")
     assert usher_main(["-i", str(pb), "-v", str(vcf), "-d", d1,
                        "--bigmat", "--mesh-devices", "0", "-p"]) == 0
@@ -322,7 +322,7 @@ def test_direct_clades_match_tree_driver(tmp_path, seed):
     vcf = tmp_path / "s.vcf"
     write_vcf_for(vcf, ma, samples)
 
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
     for extra in ([], ["-D"]):
         d1 = str(tmp_path / ("t" + "".join(extra)))
         d2 = str(tmp_path / ("a" + "".join(extra)))
@@ -351,10 +351,10 @@ def test_direct_clades_batched_equals_sequential(tmp_path, seed):
 
     def run(outname, seq):
         outdir = tmp_path / outname
-        old = os.environ.pop("USHER_TPU_DIRECT_SEQ", None)
+        old = os.environ.pop("USHER_JAX_DIRECT_SEQ", None)
         try:
             if seq:
-                os.environ["USHER_TPU_DIRECT_SEQ"] = "1"
+                os.environ["USHER_JAX_DIRECT_SEQ"] = "1"
             placer = DirectPlacer(str(pb))
             placer.missing = [_copy_sample(s) for s in samples]
             placer.place_all(DirectOptions(outdir=str(outdir),
@@ -362,9 +362,9 @@ def test_direct_clades_batched_equals_sequential(tmp_path, seed):
                                            detailed_clades=True))
         finally:
             if old is not None:
-                os.environ["USHER_TPU_DIRECT_SEQ"] = old
+                os.environ["USHER_JAX_DIRECT_SEQ"] = old
             else:
-                os.environ.pop("USHER_TPU_DIRECT_SEQ", None)
+                os.environ.pop("USHER_JAX_DIRECT_SEQ", None)
         return {f: (outdir / f).read_text()
                 for f in ("clades.txt", "placement_stats.tsv",
                           "final-tree.nh")}
@@ -420,7 +420,7 @@ def test_direct_collapse_matches_tree_driver(tmp_path, flags):
     vcf = tmp_path / "s.vcf"
     write_vcf_for(vcf, ma, samples)
 
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
     d1, d2 = str(tmp_path / "t"), str(tmp_path / "a")
     assert usher_main(["-i", str(pb), "-v", str(vcf), "-d", d1,
                        "-o", os.path.join(d1, "out.pb"),
@@ -457,7 +457,7 @@ def test_direct_subtrees_match_tree_driver(tmp_path, flags):
     vcf = tmp_path / "s.vcf"
     write_vcf_for(vcf, ma, samples)
 
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
     d1, d2 = str(tmp_path / "t"), str(tmp_path / "a")
     assert usher_main(["-i", str(pb), "-v", str(vcf), "-d", d1,
                        "--bigmat", "--mesh-devices", "0"] + flags) == 0

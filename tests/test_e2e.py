@@ -12,11 +12,11 @@ import os
 
 import pytest
 
-from usher_tpu.cli.usher_cli import main as usher_main
-from usher_tpu.core.tree import Tree
-from usher_tpu.io.newick import parse_newick_string
-from usher_tpu.io.pbio import load_mat_pb
-from usher_tpu.io.vcf import read_vcf_sites
+from usher_jax.cli.usher_cli import main as usher_main
+from usher_jax.core.tree import Tree
+from usher_jax.io.newick import parse_newick_string
+from usher_jax.io.pbio import load_mat_pb
+from usher_jax.io.vcf import read_vcf_sites
 
 from conftest import REFERENCE_TEST_DIR
 
@@ -205,7 +205,7 @@ def test_batched_placement_equals_sequential(built, tmp_path):
 
 def test_placement_matches_committed_goldens(built, tmp_path):
     """Byte-level goldens for the canonical smoke workload (SURVEY §4
-    oracles).  The golden files were produced by a verified TPU run and are
+    oracles).  The golden files were produced by a verified device run and are
     committed; any engine change that shifts placement output fails here."""
     outdir, pb = built
     outdir2 = str(tmp_path / "golden_place")
@@ -258,9 +258,9 @@ def test_pb_roundtrip_through_newick_and_vcf(built, tmp_path):
     and demand the rebuilt pb byte-identical to a re-save of the
     original.  Any drift in the VCF writer, newick writer/parser, Sankoff
     assignment, condensation, or pb codec breaks the fixed point."""
-    from usher_tpu.io.pbio import save_mat_pb
-    from usher_tpu.matutils.convert import make_vcf
-    from usher_tpu.io.newick import write_newick
+    from usher_jax.io.pbio import save_mat_pb
+    from usher_jax.matutils.convert import make_vcf
+    from usher_jax.io.newick import write_newick
 
     _outdir, pb = built
     T = load_mat_pb(pb)

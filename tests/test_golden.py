@@ -15,7 +15,7 @@ import pytest
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
-from usher_tpu.cli.usher_cli import main as usher_main
+from usher_jax.cli.usher_cli import main as usher_main
 
 SCRIPTS = REFERENCE_SCRIPTS_DIR
 
@@ -62,7 +62,7 @@ def test_smoke_summary_goldens(tmp_path):
     """matUtils summary -A on the smoke MAT must be byte-stable (locks the
     samples/mutations/clades table formats + content)."""
     import filecmp
-    from usher_tpu.cli.matutils_cli import main as mu
+    from usher_jax.cli.matutils_cli import main as mu
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
@@ -85,7 +85,7 @@ def test_smoke_extract_writer_goldens(tmp_path):
     """matUtils extract format writers (VCF, MAPLE diff, newick) must be
     byte-stable on the smoke MAT."""
     import filecmp
-    from usher_tpu.cli.matutils_cli import main as mu
+    from usher_jax.cli.matutils_cli import main as mu
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")

@@ -3,7 +3,7 @@
 interval_place_seg_dev answers the same tie-broken reduction as
 interval_place_dev without materializing [n_pad, b_pad] matrices
 (ops/interval.py, segment-query section).  These tests force both paths
-through BigMAT.place_arrays (USHER_TPU_SEG toggle) on randomized trees,
+through BigMAT.place_arrays (USHER_JAX_SEG toggle) on randomized trees,
 batches with padding/ambiguity/missing entries, and incremental-append
 overlays, asserting every output field equal — including num_best (the
 count@min monoid is the part a classic overlapping sparse-table query
@@ -22,18 +22,18 @@ NIBBLES = np.array([1, 2, 4, 8], dtype=np.uint8)
 
 def _toggle(big, pos, gval, kmiss, second):
     """Force both kernels regardless of the production default (the seg
-    kernel is opt-in on TPU — gather-bound — but must stay bit-exact)."""
-    old = os.environ.get("USHER_TPU_SEG")
+    kernel is opt-in — gather-bound — but must stay bit-exact)."""
+    old = os.environ.get("USHER_JAX_SEG")
     try:
-        os.environ["USHER_TPU_SEG"] = "0"
+        os.environ["USHER_JAX_SEG"] = "0"
         a = big.place_arrays(pos, gval, kmiss, with_second=second)
-        os.environ["USHER_TPU_SEG"] = "1"
+        os.environ["USHER_JAX_SEG"] = "1"
         b = big.place_arrays(pos, gval, kmiss, with_second=second)
     finally:
         if old is None:
-            os.environ.pop("USHER_TPU_SEG", None)
+            os.environ.pop("USHER_JAX_SEG", None)
         else:
-            os.environ["USHER_TPU_SEG"] = old
+            os.environ["USHER_JAX_SEG"] = old
     if not second:
         a, b = (a,), (b,)
     for ta, tb in zip(a, b):

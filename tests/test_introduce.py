@@ -11,8 +11,8 @@ import pytest
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.matutils.introduce import (
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.matutils.introduce import (
     find_introductions, get_assignments, get_association_index,
     get_monophyletic_cladesize, read_two_column)
 
@@ -92,9 +92,9 @@ def test_introduce_cli_smoke(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.matutils_cli import main as matutils_main
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.matutils_cli import main as matutils_main
+    from usher_jax.io.pbio import load_mat_pb
 
     build = str(tmp_path / "b")
     pb = os.path.join(build, "out.pb")
@@ -146,8 +146,8 @@ def _ann_tree(rng):
 def _run_both(tmp_path, tag, pb, pop_text, **kw):
     """Drive the Tree and arrays paths with identical args; byte-compare
     every produced artifact and the returned rows."""
-    from usher_tpu.matutils.introduce import introduce_main
-    from usher_tpu.matutils.introduce_arrays import introduce_main_arrays
+    from usher_jax.matutils.introduce import introduce_main
+    from usher_jax.matutils.introduce_arrays import introduce_main_arrays
 
     spath = str(tmp_path / f"{tag}_pop.txt")
     with open(spath, "w") as f:
@@ -177,7 +177,7 @@ def _run_both(tmp_path, tag, pb, pop_text, **kw):
 
 def test_introduce_arrays_parity_randomized(tmp_path):
     import numpy as np
-    from usher_tpu.io.pbio import save_mat_pb
+    from usher_jax.io.pbio import save_mat_pb
 
     rng = np.random.default_rng(7)
     for trial in range(3):
@@ -205,8 +205,8 @@ def test_introduce_arrays_parity_fixture(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.io.pbio import load_mat_pb
 
     build = str(tmp_path / "b")
     pb = os.path.join(build, "out.pb")

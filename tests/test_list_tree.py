@@ -9,9 +9,9 @@ polytomies (condense groups).
 import numpy as np
 import pytest
 
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io.newick import write_newick
-from usher_tpu.placement.list_tree import ListTree
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io.newick import write_newick
+from usher_jax.placement.list_tree import ListTree
 
 NIBBLES = [1, 2, 4, 8]
 
@@ -110,7 +110,7 @@ def test_condense_uncondense_parity(seed):
 
 @pytest.mark.parametrize("seed", range(6))
 def test_subtree_parity(seed):
-    from usher_tpu.matutils.tree_filter import get_subtree
+    from usher_jax.matutils.tree_filter import get_subtree
     rng = np.random.default_rng(200 + seed)
     T = random_tree(rng)
     leaves = T.get_leaves_ids()

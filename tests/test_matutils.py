@@ -6,12 +6,12 @@ import os
 import numpy as np
 import pytest
 
-from usher_tpu.cli.matutils_cli import main as matutils_main
-from usher_tpu.core.tree import Tree
-from usher_tpu.io.newick import parse_newick, parse_newick_string
-from usher_tpu.io.pbio import load_mat_pb, save_mat_pb
-from usher_tpu.io.vcf import read_vcf_sites
-from usher_tpu.ops.sankoff import assign_states_from_vcf
+from usher_jax.cli.matutils_cli import main as matutils_main
+from usher_jax.core.tree import Tree
+from usher_jax.io.newick import parse_newick, parse_newick_string
+from usher_jax.io.pbio import load_mat_pb, save_mat_pb
+from usher_jax.io.vcf import read_vcf_sites
+from usher_jax.ops.sankoff import assign_states_from_vcf
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
@@ -128,7 +128,7 @@ def test_extract_vcf_genotypes_roundtrip(mat_pb, tmp_path):
         for ch in node.children:
             stack.append((ch, state))
     # parse the vcf and compare
-    from usher_tpu.core.nuc import nuc_id_from_char
+    from usher_jax.core.nuc import nuc_id_from_char
     lines = open(tmp_path / "all.vcf").read().splitlines()
     header = lines[1].split("\t")
     names = header[9:]
@@ -203,7 +203,7 @@ def test_uncertainty(mat_pb, tmp_path):
 def test_merge(mat_pb, tmp_path):
     """Split the tree's samples into a base and an extension; merging the
     extension into a pruned base must restore every sample."""
-    from usher_tpu.matutils.tree_filter import filter_master
+    from usher_jax.matutils.tree_filter import filter_master
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     leaves = T.get_leaves_ids()
@@ -245,7 +245,7 @@ def test_mask_rename_and_simplify(mat_pb, tmp_path):
 
 
 def test_fix_grandparent_reversion(tmp_path):
-    from usher_tpu.core.tree import Mutation
+    from usher_jax.core.tree import Mutation
 
     def mk(pos, par, mut):
         return Mutation(chrom="c", position=pos, ref_nuc=par, par_nuc=par,
@@ -289,8 +289,8 @@ def test_extract_select_nearest_add_random_clades(tmp_path):
     scripts = REFERENCE_SCRIPTS_DIR
     if not os.path.exists(os.path.join(scripts, "testBranchLen2.nwk")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.matutils_cli import main as mu
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.matutils_cli import main as mu
     build = str(tmp_path / "b")
     pb = os.path.join(build, "o.pb")
     assert usher_main(["-t", os.path.join(scripts, "testBranchLen2.nwk"),
@@ -316,9 +316,9 @@ def test_extract_select_nearest_add_random_clades(tmp_path):
 def test_mask_local_snp_distance(tmp_path):
     """-D local masking: mutations on short paths overlapping nearby
     samples' missing intervals are deleted (mask.cpp:549-632)."""
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.io.pbio import load_mat_pb, save_mat_pb
-    from usher_tpu.cli.matutils_cli import main as mu
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.io.pbio import load_mat_pb, save_mat_pb
+    from usher_jax.cli.matutils_cli import main as mu
     T = Tree()
     T.create_node("root")
     anc = T.create_node("anc", "root")
@@ -347,8 +347,8 @@ def test_mask_local_snp_distance(tmp_path):
 
 
 def test_mask_get_closest_samples():
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.matutils.mask import get_closest_samples
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.matutils.mask import get_closest_samples
     T = Tree()
     T.create_node("root")
     a = T.create_node("a", "root")
@@ -370,9 +370,9 @@ def test_annotate_clade_mutations(tmp_path):
     scripts = REFERENCE_SCRIPTS_DIR
     if not os.path.exists(os.path.join(scripts, "testBranchLen2.nwk")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.matutils_cli import main as mu
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.matutils_cli import main as mu
+    from usher_jax.io.pbio import load_mat_pb
     build = str(tmp_path / "b")
     pb = os.path.join(build, "o.pb")
     assert usher_main(["-t", os.path.join(scripts, "testBranchLen2.nwk"),
@@ -396,7 +396,7 @@ def test_annotate_clade_mutations(tmp_path):
 
 
 def test_uncertainty_fisher_test():
-    from usher_tpu.matutils.uncertainty import _fisher_test
+    from usher_jax.matutils.uncertainty import _fisher_test
     # symmetric 2x2 with no association -> p == 1
     assert _fisher_test(5, 5, 5, 5) == pytest.approx(1.0, abs=1e-9)
     # strong association -> small p (canonical example: tea-tasting 2x2)
@@ -410,9 +410,9 @@ def test_uncertainty_dropout_cli(tmp_path):
     """-d dropout scan runs and emits the reference's column header; a
     synthetic enriched mutation inside a big subtree is detected."""
     import numpy as np
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.io.pbio import save_mat_pb
-    from usher_tpu.cli.matutils_cli import main as mu
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.io.pbio import save_mat_pb
+    from usher_jax.cli.matutils_cli import main as mu
     rng = np.random.default_rng(0)
     T = Tree()
     T.create_node("root")
@@ -440,9 +440,9 @@ def test_uncertainty_dropout_cli(tmp_path):
 def test_extract_reroot_reference_rewrite(tmp_path):
     """--write-reroot-reference applies the new root's allele changes to
     the input fasta (filter.cpp:176-212)."""
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.io.pbio import save_mat_pb
-    from usher_tpu.cli.matutils_cli import main as mu
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.io.pbio import save_mat_pb
+    from usher_jax.cli.matutils_cli import main as mu
     T = Tree()
     T.create_node("root")
     mid = T.create_node("mid", "root")
@@ -470,7 +470,7 @@ def test_summary_pb_direct_byte_identical(tmp_path, mat_pb):
     smoke MAT (which contains real condensed nodes)."""
     import contextlib
     import io as _io
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
 
     d1 = str(tmp_path / "t")
     d2 = str(tmp_path / "a")
@@ -501,7 +501,7 @@ def test_summary_pb_direct_clades_annotated(tmp_path):
     """clade table parity on an annotated MAT (the smoke MAT carries no
     annotations, so build one)."""
     import io as _io
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
 
     T = parse_newick_string("((A:1,B:1):1,(C:1,D:1):1):0;")
     root = T.root
@@ -527,7 +527,7 @@ def test_extract_pb_direct_byte_identical(mat_pb, tmp_path):
     """extract --pb-direct (array selection + induced subtree, no full
     host tree) must byte-match the Tree path's writers for -s and -m
     selections on the smoke MAT."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
 
     # pick some sample names from the MAT (including condensed members)
     T = load_mat_pb(mat_pb)
@@ -567,8 +567,8 @@ def test_extract_pb_direct_byte_identical(mat_pb, tmp_path):
 
 def test_extract_pb_direct_clade_selection(tmp_path):
     """-c selection parity over arrays on an annotated MAT."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
-    from usher_tpu.core.tree import Mutation
+    from usher_jax.cli.matutils_cli import main as mu_main
+    from usher_jax.core.tree import Mutation
 
     T = parse_newick_string("((A:1,B:1):1,(C:1,D:1):1):0;")
     pos = {"A": (100, 1, 2), "B": (120, 1, 4), "C": (140, 2, 8),
@@ -597,7 +597,7 @@ def test_extract_pb_direct_all_leaves_verbatim(mat_pb, tmp_path):
     behavior (filter_master returns T when the selection covers all
     leaves) — the verbatim prune-semantics builder, not the compressed
     subtree."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     sf = tmp_path / "all.txt"
@@ -618,8 +618,8 @@ def test_extract_pb_direct_large_selection_prune_semantics(tmp_path):
     semantics (unary chains and original structure retained), matching
     filter_master's size dispatch — not the compressed subtree."""
     import numpy as np
-    from usher_tpu.cli.matutils_cli import main as mu_main
-    from usher_tpu.core.tree import Mutation, Tree
+    from usher_jax.cli.matutils_cli import main as mu_main
+    from usher_jax.core.tree import Mutation, Tree
 
     rng = np.random.default_rng(2)
     T = Tree()
@@ -658,7 +658,7 @@ def test_extract_pb_direct_large_selection_prune_semantics(tmp_path):
 def test_mask_rename_pb_direct_byte_identical(mat_pb, tmp_path):
     """mask -r --pb-direct (names-blob surgery, no host tree) must
     byte-match the Tree path's renamed pb."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     leaves = [l for l in T.get_leaves_ids()][:4]
     rn = tmp_path / "rename.tsv"
@@ -676,7 +676,7 @@ def test_mask_rename_pb_direct_byte_identical(mat_pb, tmp_path):
 def test_mask_rename_pb_direct_collision_raises(mat_pb, tmp_path):
     """Renaming onto an existing node name must fail like the Tree path
     (rename_node's ValueError), not silently emit a duplicate-name MAT."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     a, b = T.get_leaves_ids()[:2]
     rn = tmp_path / "r.tsv"
@@ -693,7 +693,7 @@ def test_annotate_nid_pb_direct_byte_identical(mat_pb, tmp_path):
     """annotate -C --pb-direct (annotation-blob surgery) must byte-match
     the Tree path, including append-vs-clear column behavior and the
     already-assigned warning."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     internal = [n.identifier for n in T.depth_first_expansion()
                 if not n.is_leaf()][1:4]
@@ -719,7 +719,7 @@ def test_uncertainty_pb_direct_byte_identical(mat_pb, tmp_path):
     """uncertainty --pb-direct (array placement with self-exclusion via
     the runner-up reduce) must byte-match the Tree path's EPP and
     placement-location tables on the condensed smoke MAT."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     leaves = T.get_leaves_ids()
@@ -746,7 +746,7 @@ def test_uncertainty_pb_direct_byte_identical(mat_pb, tmp_path):
 def test_extract_pb_direct_filters_byte_identical(mat_pb, tmp_path):
     """-e/-a/-b/-P selection filters over arrays must byte-match the
     Tree path's extract outputs."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     for flags in (["-a", "1"], ["-b", "2"], ["-P", "3"],
                   ["-e", "1", "-a", "2"]):
         tag = "".join(flags)
@@ -768,7 +768,7 @@ def test_extract_pb_direct_filters_byte_identical(mat_pb, tmp_path):
 def test_extract_pb_direct_match_descendents_mrca(mat_pb, tmp_path):
     """-H regex, -I internal-descendants, and -U from-MRCA selection
     parity over arrays."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     internal = [n.identifier for n in T.depth_first_expansion()
                 if not n.is_leaf() and len(n.children) > 1][2]
@@ -793,7 +793,7 @@ def test_extract_pb_direct_match_descendents_mrca(mat_pb, tmp_path):
 def test_extract_pb_direct_density_filter(mat_pb, tmp_path):
     """--max-mutation-density parity over arrays (applied after the
     branch/path filters and before -U, like select_samples)."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     for flags in (["-H", "Wuhan", "--max-mutation-density", "1.5"],
                   ["-a", "2", "--max-mutation-density", "2.5", "-U"]):
         tag = str(len(flags))
@@ -814,7 +814,7 @@ def test_extract_pb_direct_density_filter(mat_pb, tmp_path):
 def test_extract_pb_direct_nearest_and_random(mat_pb, tmp_path):
     """-k nearest and -z/-W/-Z random fill parity over arrays (the random
     pool is BFS leaf order, so draws match the Tree path seed-for-seed)."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     leaf = T.get_leaves_ids()[10]
@@ -839,7 +839,7 @@ def test_extract_pb_direct_nearest_and_random(mat_pb, tmp_path):
 
 def test_extract_pb_direct_select_nearest(mat_pb, tmp_path):
     """-Y (nearest expansion per selected sample) parity over arrays."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     sf = tmp_path / "n.txt"
@@ -860,7 +860,7 @@ def test_extract_pb_direct_zshrink_order_parity(mat_pb, tmp_path):
     Tree path seed-for-seed — the rng indexes into the selection list,
     so leaf enumeration ORDER (BFS, per-carrier vs global) is part of
     the contract (review-confirmed regression)."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
+    from usher_jax.cli.matutils_cli import main as mu_main
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     internal = [n.identifier for n in T.depth_first_expansion()
@@ -1027,7 +1027,7 @@ def test_extract_nearest_k_batch(mat_pb, tmp_path):
 def test_merge_max_depth(mat_pb, tmp_path):
     """-d bounds the merge search to the consistent anchor's subtree; all
     samples still merge (at worst onto the anchor itself)."""
-    from usher_tpu.matutils.tree_filter import filter_master
+    from usher_jax.matutils.tree_filter import filter_master
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     leaves = T.get_leaves_ids()
@@ -1052,7 +1052,7 @@ def test_whole_mat_vcf_diff_arrays_parity(mat_pb, tmp_path):
     """Whole-MAT extract -v / --write-diff under --pb-direct (no
     selection) must byte-match the Tree writers on the uncondensed
     fixture MAT (convert.cpp:294, :325)."""
-    from usher_tpu.matutils.convert import make_vcf, make_diff
+    from usher_jax.matutils.convert import make_vcf, make_diff
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     v1 = str(tmp_path / "t.vcf")
@@ -1078,7 +1078,7 @@ def test_whole_mat_json_arrays_parity(mat_pb, tmp_path):
     """Whole-MAT extract -j under --pb-direct (no selection) must
     byte-match the Tree JSON writer incl. metadata and annotated-clade
     columns (convert.cpp:585-663)."""
-    from usher_tpu.matutils.convert import write_json_from_mat, \
+    from usher_jax.matutils.convert import write_json_from_mat, \
         read_metafile
     # annotate a copy so MAT_Clade columns are exercised
     T = load_mat_pb(mat_pb)
@@ -1107,7 +1107,7 @@ def test_merge_arrays_parity(mat_pb, tmp_path):
     """--pb-direct merge must byte-match the Tree merge on the same
     inputs (merge.cpp:125 semantics; placement/apply/save run on the
     parity-proven direct machinery)."""
-    from usher_tpu.matutils.tree_filter import filter_master
+    from usher_jax.matutils.tree_filter import filter_master
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     leaves = T.get_leaves_ids()
@@ -1134,8 +1134,8 @@ def test_merge_arrays_parity_novel_positions(mat_pb, tmp_path):
     """New samples carrying mutations at positions the base never saw
     (extra-position seeding), plus sibling new samples under one parent
     (in-batch touched/stale handling)."""
-    from usher_tpu.core.tree import Mutation
-    from usher_tpu.matutils.tree_filter import filter_master
+    from usher_jax.core.tree import Mutation
+    from usher_jax.matutils.tree_filter import filter_master
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     leaves = T.get_leaves_ids()
@@ -1165,14 +1165,14 @@ def test_merge_arrays_parity_novel_positions(mat_pb, tmp_path):
 def test_find_epps_grouped_matches_plain(mat_pb, monkeypatch):
     """uncertainty's bulk re-scoring must be identical whether the
     shared-ancestry grouped engine or plain scoring runs underneath."""
-    from usher_tpu.io.pb_arrays import load_mat_arrays
-    from usher_tpu.matutils.arrays import find_epps
+    from usher_jax.io.pb_arrays import load_mat_arrays
+    from usher_jax.matutils.arrays import find_epps
     ma = load_mat_arrays(mat_pb)
     T = load_mat_pb(mat_pb)
     T.uncondense_leaves()
     samples = T.get_leaves_ids()[:60]
-    monkeypatch.setenv("USHER_TPU_GROUPED", "1")
+    monkeypatch.setenv("USHER_JAX_GROUPED", "1")
     r_grp = find_epps(ma, samples)
-    monkeypatch.setenv("USHER_TPU_GROUPED", "0")
+    monkeypatch.setenv("USHER_JAX_GROUPED", "0")
     r_plain = find_epps(ma, samples)
     assert r_grp == r_plain

@@ -13,7 +13,7 @@ are randomized with heavy ambiguity codes and missing (N) entries.
 import numpy as np
 import pytest
 
-from usher_tpu.core.bigmat import BigMAT
+from usher_jax.core.bigmat import BigMAT
 
 NIBBLES = np.array([1, 2, 4, 8], dtype=np.uint8)
 

@@ -4,8 +4,8 @@ import os
 
 import pytest
 
-from usher_tpu.io import transpose
-from usher_tpu.io.vcf import read_vcf_sites
+from usher_jax.io import transpose
+from usher_jax.io.vcf import read_vcf_sites
 
 from conftest import REFERENCE_TEST_DIR
 
@@ -28,9 +28,9 @@ def test_native_and_python_codecs_agree(tmp_path):
     transpose.encode(samples, p1)
     assert transpose.decode(p1) == samples
     # cross-decoding: both containers must parse each other's bytes
-    from usher_tpu.native import HAVE_NATIVE
+    from usher_jax.native import HAVE_NATIVE
     if HAVE_NATIVE:
-        from usher_tpu.native import ext
+        from usher_jax.native import ext
         assert [(n, [(int(a), int(b)) for a, b in m],
                  [(int(s), int(e)) for s, e in r])
                 for n, m, r in ext.transpose_decode(p2)] == samples
@@ -39,7 +39,7 @@ def test_native_and_python_codecs_agree(tmp_path):
 
 def test_transpose_vcf_roundtrip(tmp_path):
     """VCF -> transposed -> VCF preserves every genotype."""
-    from usher_tpu.cli.transpose_vcf_cli import main as tv_main
+    from usher_jax.cli.transpose_vcf_cli import main as tv_main
     tvcf = str(tmp_path / "g.tvcf")
     out_vcf = str(tmp_path / "back.vcf")
     rc = tv_main(["encode", "-v", GLOBAL_VCF, "-o", tvcf])
@@ -64,7 +64,7 @@ def test_transpose_vcf_roundtrip(tmp_path):
 
 
 def test_compare_vcf(tmp_path, capsys):
-    from usher_tpu.cli.compare_vcf_cli import main as cmp_main
+    from usher_jax.cli.compare_vcf_cli import main as cmp_main
     rc = cmp_main([NEW_VCF, NEW_VCF])
     assert rc == 0
     # different files disagree
@@ -73,8 +73,8 @@ def test_compare_vcf(tmp_path, capsys):
 
 
 def test_check_samples_place(tmp_path):
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.check_samples_cli import main as check_main
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.check_samples_cli import main as check_main
     outdir = str(tmp_path / "b")
     pb = os.path.join(outdir, "out.pb")
     rc = usher_main(["-t", GLOBAL_NH, "-v", GLOBAL_VCF, "-o", pb, "-d", outdir])
@@ -95,7 +95,7 @@ def test_parse_vcf_mt_matches_serial():
     """Parallel VCF pipeline (import_vcf_fast.cpp analog) must produce
     identical output to the serial parser."""
     import pytest
-    from usher_tpu.native import ext, HAVE_NATIVE
+    from usher_jax.native import ext, HAVE_NATIVE
     if not HAVE_NATIVE or not hasattr(ext, "parse_vcf_mt"):
         pytest.skip("native extension not built")
     path = "/root/reference/test/global_samples.vcf"

@@ -2,8 +2,8 @@ import os
 
 import pytest
 
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io.newick import parse_newick_string, write_newick
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io.newick import parse_newick_string, write_newick
 
 from conftest import REFERENCE_TEST_DIR
 

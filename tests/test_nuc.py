@@ -1,4 +1,4 @@
-from usher_tpu.core import nuc
+from usher_jax.core import nuc
 
 
 def test_onehot_basic():

@@ -10,13 +10,13 @@ import os
 import numpy as np
 import pytest
 
-from usher_tpu.core.flat import collect_positions
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io.newick import parse_newick
-from usher_tpu.io.vcf import read_vcf_sites
-from usher_tpu.ops.sankoff import assign_states_from_vcf
-from usher_tpu.optimize import OptimizeOptions, optimize_tree
-from usher_tpu.optimize.fitch import FitchEngine, leaf_masks_from_tree
+from usher_jax.core.flat import collect_positions
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io.newick import parse_newick
+from usher_jax.io.vcf import read_vcf_sites
+from usher_jax.ops.sankoff import assign_states_from_vcf
+from usher_jax.optimize import OptimizeOptions, optimize_tree
+from usher_jax.optimize.fitch import FitchEngine, leaf_masks_from_tree
 
 from conftest import REFERENCE_TEST_DIR
 
@@ -151,8 +151,8 @@ def test_optimize_global_tree_monotone():
 
 
 def test_matoptimize_cli(tmp_path):
-    from usher_tpu.cli.matoptimize_cli import main as mato_main
-    from usher_tpu.io.pbio import save_mat_pb, load_mat_pb
+    from usher_jax.cli.matoptimize_cli import main as mato_main
+    from usher_jax.io.pbio import save_mat_pb, load_mat_pb
     T = build_suboptimal_tree()
     pb_in = str(tmp_path / "in.pb")
     pb_out = str(tmp_path / "out.pb")
@@ -166,8 +166,8 @@ def test_matoptimize_cli(tmp_path):
 def test_matoptimize_diff_input(tmp_path):
     """-t newick -D diff -R ref.fa: genotypes from MAPLE diff
     (reference main.cpp:360-374)."""
-    from usher_tpu.cli.matoptimize_cli import main as mato_main
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.cli.matoptimize_cli import main as mato_main
+    from usher_jax.io.pbio import load_mat_pb
     ref_fa = str(tmp_path / "ref.fa")
     with open(ref_fa, "w") as f:
         f.write(">chr\n" + "A" * 30 + "\n")
@@ -190,9 +190,9 @@ def test_matoptimize_diff_input(tmp_path):
 def test_matoptimize_transposed_vcf_patch(tmp_path):
     """-i pb -V transposed.vcf restores ambiguous leaf bases
     (reference main.cpp:346-358)."""
-    from usher_tpu.cli.matoptimize_cli import main as mato_main
-    from usher_tpu.io import transpose
-    from usher_tpu.io.pbio import save_mat_pb, load_mat_pb
+    from usher_jax.cli.matoptimize_cli import main as mato_main
+    from usher_jax.io import transpose
+    from usher_jax.io.pbio import save_mat_pb, load_mat_pb
     T = build_suboptimal_tree()
     pb_in = str(tmp_path / "in.pb")
     save_mat_pb(T, pb_in)
@@ -213,9 +213,9 @@ def test_matoptimize_transposed_vcf_patch(tmp_path):
 
 def test_matoptimize_epp_mode(tmp_path):
     """-E writes an EPP-annotated newick (reference main.cpp:438-504)."""
-    from usher_tpu.cli.matoptimize_cli import main as mato_main
-    from usher_tpu.io.pbio import save_mat_pb
-    from usher_tpu.io.newick import parse_newick_string
+    from usher_jax.cli.matoptimize_cli import main as mato_main
+    from usher_jax.io.pbio import save_mat_pb
+    from usher_jax.io.newick import parse_newick_string
     import os as _os
     T = build_suboptimal_tree()
     pb_in = str(tmp_path / "in.pb")
@@ -238,21 +238,21 @@ def test_matoptimize_epp_mode(tmp_path):
 
 
 def test_check_state_reassign_toggle(tmp_path, monkeypatch):
-    """USHER_TPU_CHECK_STATE_REASSIGN=1 (the -DCHECK_STATE_REASSIGN analog)
+    """USHER_JAX_CHECK_STATE_REASSIGN=1 (the -DCHECK_STATE_REASSIGN analog)
     verifies the local FS patch against a full recompute each iteration."""
     import os
     import pytest
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.matoptimize_cli import main as opt_main
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.matoptimize_cli import main as opt_main
     build = str(tmp_path / "b")
     pb = os.path.join(build, "o.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
                        "-v", os.path.join(ref_dir, "global_samples.vcf"),
                        "-o", pb, "-d", build]) == 0
-    monkeypatch.setenv("USHER_TPU_CHECK_STATE_REASSIGN", "1")
+    monkeypatch.setenv("USHER_JAX_CHECK_STATE_REASSIGN", "1")
     out = str(tmp_path / "opt.pb")
     assert opt_main(["-i", pb, "-o", out, "-N", "2", "-r", "4",
                      "--mesh-devices", "0"]) == 0
@@ -261,9 +261,9 @@ def test_check_state_reassign_toggle(tmp_path, monkeypatch):
 def test_apply_move_undo_roundtrip():
     """apply_move's undo log must restore the exact pre-move tree
     (topology, mutations, levels, node table) without an O(tree) snapshot."""
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.io.newick import write_newick
-    from usher_tpu.optimize.spr import Move, apply_move, revert_moves
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.io.newick import write_newick
+    from usher_jax.optimize.spr import Move, apply_move, revert_moves
 
     def build():
         T = Tree()
@@ -325,10 +325,10 @@ def test_sparse_leaf_store_matches_dense():
     """SparseLeafStore materialization must equal the dense
     leaf_masks_from_tree rows at leaves (chunked and arbitrary columns)."""
     import numpy as np
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.core.flat import collect_positions
-    from usher_tpu.optimize.fitch import FitchEngine, leaf_masks_from_tree
-    from usher_tpu.optimize.leafstore import SparseLeafStore
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.core.flat import collect_positions
+    from usher_jax.optimize.fitch import FitchEngine, leaf_masks_from_tree
+    from usher_jax.optimize.leafstore import SparseLeafStore
 
     rng = np.random.default_rng(5)
     bases = [1, 2, 4, 8]
@@ -375,7 +375,7 @@ def test_sparse_leaf_store_matches_dense():
     sc1 = eng.rewrite_mutations(s1, dense, ref_row, chrom)
     sc2 = eng2.rewrite_mutations(s2, store2, ref_row, chrom)
     assert sc1 == sc2
-    from usher_tpu.io.newick import write_newick
+    from usher_jax.io.newick import write_newick
     assert write_newick(T, print_internal=True, print_branch_len=True) == \
         write_newick(T2, print_internal=True, print_branch_len=True)
 
@@ -389,9 +389,9 @@ def test_matoptimize_improves_smoke_tree(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.matoptimize_cli import main as opt_main
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.matoptimize_cli import main as opt_main
+    from usher_jax.io.pbio import load_mat_pb
     build = str(tmp_path / "b")
     pb = os.path.join(build, "smoke.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
@@ -410,12 +410,12 @@ def test_big_move_finder_matches_dense():
     """BigMoveFinder (CSR + sparse SPR kernel + host masking) must produce
     the EXACT same move list as the dense MoveFinder."""
     import numpy as np
-    from usher_tpu.core.flat import collect_positions
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.optimize.fitch import FitchEngine
-    from usher_tpu.optimize.leafstore import SparseLeafStore
-    from usher_tpu.optimize.spr import MoveFinder
-    from usher_tpu.optimize.spr_big import BigMoveFinder
+    from usher_jax.core.flat import collect_positions
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.optimize.fitch import FitchEngine
+    from usher_jax.optimize.leafstore import SparseLeafStore
+    from usher_jax.optimize.spr import MoveFinder
+    from usher_jax.optimize.spr_big import BigMoveFinder
 
     for seed in (0, 1, 2):
         rng = np.random.default_rng(seed)
@@ -462,10 +462,10 @@ def test_matoptimize_spr_backend_big_identical(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.matoptimize_cli import main as opt_main
-    from usher_tpu.io.newick import write_newick
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.matoptimize_cli import main as opt_main
+    from usher_jax.io.newick import write_newick
+    from usher_jax.io.pbio import load_mat_pb
     build = str(tmp_path / "b")
     pb = os.path.join(build, "smoke.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
@@ -493,10 +493,10 @@ def test_matoptimize_stream_states_identical(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.matoptimize_cli import main as opt_main
-    from usher_tpu.io.newick import write_newick
-    from usher_tpu.io.pbio import load_mat_pb
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.matoptimize_cli import main as opt_main
+    from usher_jax.io.newick import write_newick
+    from usher_jax.io.pbio import load_mat_pb
     build = str(tmp_path / "b")
     pb = os.path.join(build, "smoke.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
@@ -518,13 +518,13 @@ def test_matoptimize_stream_states_identical(tmp_path):
 def test_streamed_patch_maintains_csr(monkeypatch, tmp_path):
     """Streamed incremental-patch iterations must maintain the array-form
     mutation set (csr_triplets) exactly — asserted against a from-scratch
-    from_tree build on EVERY finder construction (USHER_TPU_CHECK_CSR),
+    from_tree build on EVERY finder construction (USHER_JAX_CHECK_CSR),
     across several iterations with applied moves."""
     import numpy as np
-    from usher_tpu.core.tree import Mutation, Tree
-    from usher_tpu.optimize import OptimizeOptions, optimize_tree
+    from usher_jax.core.tree import Mutation, Tree
+    from usher_jax.optimize import OptimizeOptions, optimize_tree
 
-    monkeypatch.setenv("USHER_TPU_CHECK_CSR", "1")
+    monkeypatch.setenv("USHER_JAX_CHECK_CSR", "1")
     rng = np.random.default_rng(9)
     bases = [1, 2, 4, 8]
     T = Tree(); T.create_node("root"); nodes = ["root"]
@@ -543,6 +543,6 @@ def test_streamed_patch_maintains_csr(monkeypatch, tmp_path):
     sc_dense = optimize_tree(T2, OptimizeOptions(
         radius=3, max_iterations=6, reduce_back_mutations=False))
     assert sc_stream == sc_dense
-    from usher_tpu.io.newick import write_newick
+    from usher_jax.io.newick import write_newick
     assert write_newick(T, print_internal=True, print_branch_len=True) == \
         write_newick(T2, print_internal=True, print_branch_len=True)

@@ -1,8 +1,8 @@
 import os
 
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io.newick import parse_newick_string, write_newick
-from usher_tpu.io.pbio import load_mat_pb, save_mat_pb
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io.newick import parse_newick_string, write_newick
+from usher_jax.io.pbio import load_mat_pb, save_mat_pb
 
 
 def make_tree():

@@ -9,11 +9,11 @@ import pytest
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
-from usher_tpu.core.bigmat import BigMAT
-from usher_tpu.core.flat import collect_positions
-from usher_tpu.io import pb_arrays as pa
-from usher_tpu.io.newick import write_newick
-from usher_tpu.io.pbio import load_mat_pb, save_mat_pb
+from usher_jax.core.bigmat import BigMAT
+from usher_jax.core.flat import collect_positions
+from usher_jax.io import pb_arrays as pa
+from usher_jax.io.newick import write_newick
+from usher_jax.io.pbio import load_mat_pb, save_mat_pb
 
 from test_placement import random_mat, random_sample
 
@@ -33,7 +33,7 @@ def _roundtrip(tmp_path, seed, native):
     big1 = BigMAT.from_tree(T2, positions, refarr)
 
     if not native:
-        import usher_tpu.native as nat
+        import usher_jax.native as nat
         orig = nat.HAVE_NATIVE
         nat.HAVE_NATIVE = False
         try:
@@ -48,7 +48,7 @@ def _roundtrip(tmp_path, seed, native):
 
 @pytest.mark.parametrize("native", [True, False])
 def test_array_load_matches_node_load(tmp_path, native):
-    import usher_tpu.native as nat
+    import usher_jax.native as nat
     if native and not nat.HAVE_NATIVE:
         pytest.skip("native extension not built")
     T2, big1, big2, ma, rng, ref = _roundtrip(tmp_path, 3, native)
@@ -95,7 +95,7 @@ def test_array_load_matches_node_load(tmp_path, native):
 
 
 def test_native_and_python_loaders_agree(tmp_path):
-    import usher_tpu.native as nat
+    import usher_jax.native as nat
     if not nat.HAVE_NATIVE:
         pytest.skip("native extension not built")
     _, _, bigN, maN, _, _ = _roundtrip(tmp_path, 5, True)
@@ -117,7 +117,7 @@ def test_pb_direct_byte_identical_to_bigmat(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
 
     pb = str(tmp_path / "out.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
@@ -176,7 +176,7 @@ def test_pb_direct_flag_parity(tmp_path, extra):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
 
     pb = str(tmp_path / "out.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
@@ -201,7 +201,7 @@ def test_pb_direct_mesh_identical(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
 
     pb = str(tmp_path / "out.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
@@ -237,7 +237,7 @@ def test_pb_direct_duplicate_sample_skipped(tmp_path):
         r = ref[p0]
         alt = 1 if r != 1 else 2
         f.write(f"c\t{p0}\t.\t{bases[r]}\t{bases[alt]}\t.\t.\t.\tGT\t1\t1\n")
-    from usher_tpu.placement.direct import DirectOptions, run_usher_direct
+    from usher_jax.placement.direct import DirectOptions, run_usher_direct
     out = str(tmp_path / "o")
     assert run_usher_direct(pb, vcf, DirectOptions(outdir=out)) == 0
     tree = open(os.path.join(out, "final-tree.nh")).read()
@@ -253,7 +253,7 @@ def test_pb_direct_save_and_uncondensed_byte_identical(tmp_path):
     ref_dir = REFERENCE_TEST_DIR
     if not os.path.exists(os.path.join(ref_dir, "global_phylo.nh")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_cli import main as usher_main
 
     pb = str(tmp_path / "out.pb")
     assert usher_main(["-t", os.path.join(ref_dir, "global_phylo.nh"),
@@ -283,10 +283,10 @@ def test_pb_direct_save_annotated_parity(tmp_path):
     """-o parity on an ANNOTATED MAT: placement-created nodes must carry
     the empty annotation columns the Tree path writes (review finding:
     previously zero entries)."""
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.io.newick import parse_newick_string
-    from usher_tpu.io.pbio import save_mat_pb
-    from usher_tpu.core.tree import Mutation
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.io.newick import parse_newick_string
+    from usher_jax.io.pbio import save_mat_pb
+    from usher_jax.core.tree import Mutation
 
     T = parse_newick_string("((A:1,B:1):1,(C:1,D:1):1):0;")
     pos = {"A": (100, 1, 2), "B": (120, 1, 4), "C": (140, 2, 8),
@@ -323,7 +323,7 @@ def test_save_vec_encoder_matches_loop(tmp_path, monkeypatch):
     the per-field loop, including ambiguous mut_nuc nibbles (packed
     multi-nt lists) and condensed/annotated MATs."""
     import numpy as np
-    from usher_tpu.io import pb_arrays as pa
+    from usher_jax.io import pb_arrays as pa
 
     rng = np.random.default_rng(17)
     n, P = 400, 60

@@ -10,11 +10,11 @@ correctness argument for the vectorized design.
 import numpy as np
 import pytest
 
-from usher_tpu.core.flat import FlatMAT, collect_positions
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io.newick import parse_newick_string
-from usher_tpu.ops import placement as dev
-from usher_tpu.placement.mapper import score_placement
+from usher_jax.core.flat import FlatMAT, collect_positions
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io.newick import parse_newick_string
+from usher_jax.ops import placement as dev
+from usher_jax.placement.mapper import score_placement
 
 BASES = [1, 2, 4, 8]
 N = 15

@@ -1,19 +1,19 @@
-"""Sparse Pallas placement kernel vs the dense XLA kernel.
+"""Sparse placement scorer vs the dense one.
 
-The sparse kernel (ops/placement_pallas.py) must be bit-identical to the
+The sparse scorer (ops/placement_sparse.py) must be bit-identical to the
 dense path (ops/placement.py score_batch) on any well-formed MAT + sample
 batch, including ambiguous alleles, missing entries, lane padding, and
-inactive slots.  On CPU the kernel runs in interpret mode; the same code
-compiles for TPU.
+inactive slots.  Both are plain JAX, so the same code runs here and on the
+GPU (where chip_smoke.py compares them at the bench headline shape).
 """
 
 import numpy as np
 import pytest
 
-from usher_tpu.core.flat import FlatMAT
-from usher_tpu.ops import placement as dev
-from usher_tpu.ops import placement_pallas as pp
-from usher_tpu.placement.driver import PlacementEngine
+from usher_jax.core.flat import FlatMAT
+from usher_jax.ops import placement as dev
+from usher_jax.ops import placement_sparse as pp
+from usher_jax.placement.driver import PlacementEngine
 
 from test_placement import random_mat, random_sample
 

@@ -4,10 +4,10 @@ import os
 
 import pytest
 
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io.pbio import save_mat_pb, load_mat_pb
-from usher_tpu.cli.ripples_cli import main as ripples_cli
-from usher_tpu.ripples import RipplesOptions, ripples_main
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io.pbio import save_mat_pb, load_mat_pb
+from usher_jax.cli.ripples_cli import main as ripples_cli
+from usher_jax.ripples import RipplesOptions, ripples_main
 
 
 def mk(pos, mut, par=1, ref=1):
@@ -94,8 +94,8 @@ def test_ripples_init_cli(tmp_path):
     """ripplesInit: long-branch count + Chronumental id map
     (reference init/main.cpp:13, init_pipeline.cpp:8-80)."""
     import os
-    from usher_tpu.cli.ripples_init_cli import main as init_main
-    from usher_tpu.io.pbio import save_mat_pb
+    from usher_jax.cli.ripples_init_cli import main as init_main
+    from usher_jax.io.pbio import save_mat_pb
     T = build_recombinant_tree()
     pb = str(tmp_path / "t.pb")
     save_mat_pb(T, pb)
@@ -121,8 +121,8 @@ def test_ripples_utils_cli(tmp_path):
     """ripplesUtils: trio parsing + helper files
     (reference util/ripplesUtils.cpp, parse_data.cpp)."""
     import os
-    from usher_tpu.cli.ripples_utils_cli import main as utils_main
-    from usher_tpu.io.pbio import save_mat_pb
+    from usher_jax.cli.ripples_utils_cli import main as utils_main
+    from usher_jax.io.pbio import save_mat_pb
     T = build_recombinant_tree()
     pb = str(tmp_path / "t.pb")
     save_mat_pb(T, pb)

@@ -6,7 +6,7 @@ import pytest
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
-from usher_tpu.ripples.filter import (max_descent, mnk_pvalue, pattern_mnk,
+from usher_jax.ripples.filter import (max_descent, mnk_pvalue, pattern_mnk,
                                       trio_pattern)
 
 SCRIPTS = REFERENCE_SCRIPTS_DIR
@@ -58,7 +58,7 @@ def test_mnk_pvalue_matches_bruteforce(m, n, k):
 
 
 def test_trio_pattern_from_mat():
-    from usher_tpu.core.tree import Mutation, Tree
+    from usher_jax.core.tree import Mutation, Tree
     T = Tree()
     T.create_node("root")
     d = T.create_node("donor", "root")
@@ -80,9 +80,9 @@ def test_filter_end_to_end(tmp_path):
     """Run ripples on a small MAT, then the filter CLI over its output."""
     if not os.path.exists(os.path.join(SCRIPTS, "testBranchLen2.nwk")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.ripples_cli import main as ripples_main
-    from usher_tpu.cli.ripples_filter_cli import main as filter_main
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.ripples_cli import main as ripples_main
+    from usher_jax.cli.ripples_filter_cli import main as filter_main
     build = str(tmp_path / "b")
     pb = os.path.join(build, "o.pb")
     assert usher_main(["-t", os.path.join(SCRIPTS, "testBranchLen2.nwk"),

@@ -5,13 +5,13 @@ import os
 import numpy as np
 import pytest
 
-from usher_tpu.core.tree import Tree
-from usher_tpu.io.newick import parse_newick
-from usher_tpu.io.vcf import read_vcf_sites, collect_missing_samples_build
-from usher_tpu.io.diff import load_reference_fasta, load_diff, materialize_missing
-from usher_tpu.ops.sankoff import assign_states_from_vcf
-from usher_tpu.placement.driver import PlacementEngine
-from usher_tpu.placement.sampled import place_batch
+from usher_jax.core.tree import Tree
+from usher_jax.io.newick import parse_newick
+from usher_jax.io.vcf import read_vcf_sites, collect_missing_samples_build
+from usher_jax.io.diff import load_reference_fasta, load_diff, materialize_missing
+from usher_jax.ops.sankoff import assign_states_from_vcf
+from usher_jax.placement.driver import PlacementEngine
+from usher_jax.placement.sampled import place_batch
 
 from conftest import REFERENCE_TEST_DIR
 
@@ -96,7 +96,7 @@ def test_diff_roundtrip(built_tree, tmp_path):
     site_a, site_b = vcf.sites[10], vcf.sites[20]
     alt_a = 1 if site_a.ref_nuc != 1 else 2
     alt_b = 4 if site_b.ref_nuc != 4 else 8
-    from usher_tpu.core.nuc import char_from_nuc_id
+    from usher_jax.core.nuc import char_from_nuc_id
     diff_path = tmp_path / "s.diff"
     diff_path.write_text(
         f">dsample\n"

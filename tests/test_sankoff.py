@@ -6,11 +6,11 @@ input genotype; see /root/reference/src/matOptimize/check_samples.cpp)."""
 import numpy as np
 import pytest
 
-from usher_tpu.core.nuc import nuc_id_from_char
-from usher_tpu.core.tree import Tree
-from usher_tpu.io.newick import parse_newick_string
-from usher_tpu.io.vcf import VcfData, VcfSite
-from usher_tpu.ops.sankoff import assign_states_from_vcf
+from usher_jax.core.nuc import nuc_id_from_char
+from usher_jax.core.tree import Tree
+from usher_jax.io.newick import parse_newick_string
+from usher_jax.io.vcf import VcfData, VcfSite
+from usher_jax.ops.sankoff import assign_states_from_vcf
 
 A, C, G, T, N = 1, 2, 4, 8, 15
 

@@ -10,8 +10,8 @@ import pytest
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
-from usher_tpu.cli.usher_cli import main as usher_main
-from usher_tpu.cli.usher_server_cli import MatStore, serve
+from usher_jax.cli.usher_cli import main as usher_main
+from usher_jax.cli.usher_server_cli import MatStore, serve
 
 SCRIPTS = REFERENCE_SCRIPTS_DIR
 
@@ -104,7 +104,7 @@ def test_usher_server_version_and_reload_lines(small_mat, tmp_path, capsys):
 import socket  # noqa: E402
 import threading  # noqa: E402
 
-from usher_tpu.cli.usher_socket_server_cli import (SocketServer,  # noqa: E402
+from usher_jax.cli.usher_socket_server_cli import (SocketServer,  # noqa: E402
                                                   TreeCollection,
                                                   handle_request)
 

@@ -5,13 +5,13 @@ import os
 
 import pytest
 
-from usher_tpu.core.nuc import A, C, G
-from usher_tpu.core.nuc import T as T_NT
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io import proto_wire as pw
-from usher_tpu.matutils.translate import (build_codon_map, build_reference,
+from usher_jax.core.nuc import A, C, G
+from usher_jax.core.nuc import T as T_NT
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io import proto_wire as pw
+from usher_jax.matutils.translate import (build_codon_map, build_reference,
                                           save_taxodium_tree, translate_main)
-from usher_tpu.matutils.summary import write_node_stats, write_roho_table
+from usher_jax.matutils.summary import write_node_stats, write_roho_table
 
 # ATG GCT TGT TAA -> M A C *
 REF_SEQ = "ATGGCTTGTTAA"
@@ -191,15 +191,15 @@ def _bigger_tree():
 def test_translate_arrays_parity(tmp_path, gene_files):
     """translate_arrays (no-Tree path) must byte-match translate_main on
     a condensed randomized tree through the pb roundtrip."""
-    from usher_tpu.io.pbio import save_mat_pb
-    from usher_tpu.io.pb_arrays import load_mat_arrays
-    from usher_tpu.matutils.translate_arrays import translate_arrays
+    from usher_jax.io.pbio import save_mat_pb
+    from usher_jax.io.pb_arrays import load_mat_arrays
+    from usher_jax.matutils.translate_arrays import translate_arrays
     fasta, gtf = gene_files
     T = _bigger_tree()
     pb = str(tmp_path / "t.pb")
     save_mat_pb(T, pb)
 
-    T2 = __import__("usher_tpu.io.pbio", fromlist=["load_mat_pb"]) \
+    T2 = __import__("usher_jax.io.pbio", fromlist=["load_mat_pb"]) \
         .load_mat_pb(pb)
     out1 = str(tmp_path / "tree.tsv")
     translate_main(T2, out1, gtf, fasta)
@@ -213,9 +213,9 @@ def test_translate_arrays_parity(tmp_path, gene_files):
 def test_taxodium_arrays_parity(tmp_path, gene_files):
     """save_taxodium_arrays must byte-match save_taxodium_tree (incl.
     rotation, uncondense, metadata interning, y layout)."""
-    from usher_tpu.io.pbio import load_mat_pb, save_mat_pb
-    from usher_tpu.io.pb_arrays import load_mat_arrays
-    from usher_tpu.matutils.translate_arrays import save_taxodium_arrays
+    from usher_jax.io.pbio import load_mat_pb, save_mat_pb
+    from usher_jax.io.pb_arrays import load_mat_arrays
+    from usher_jax.matutils.translate_arrays import save_taxodium_arrays
     fasta, gtf = gene_files
     T = _bigger_tree()
     pb = str(tmp_path / "t.pb")
@@ -242,8 +242,8 @@ def test_taxodium_arrays_parity(tmp_path, gene_files):
 def test_cli_pb_direct_translate_and_taxodium(tmp_path, gene_files):
     """matUtils summary --pb-direct -t and extract --pb-direct -l run the
     array writers end-to-end and match the tree path byte-for-byte."""
-    from usher_tpu.cli.matutils_cli import main as mu_main
-    from usher_tpu.io.pbio import save_mat_pb
+    from usher_jax.cli.matutils_cli import main as mu_main
+    from usher_jax.io.pbio import save_mat_pb
     fasta, gtf = gene_files
     T = _bigger_tree()
     pb = str(tmp_path / "t.pb")

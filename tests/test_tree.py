@@ -1,7 +1,7 @@
 import pytest
 
-from usher_tpu.core.tree import Mutation, Tree
-from usher_tpu.io.newick import parse_newick_string, write_newick
+from usher_jax.core.tree import Mutation, Tree
+from usher_jax.io.newick import parse_newick_string, write_newick
 
 
 def M(pos, par, mut, ref=1):

@@ -4,10 +4,10 @@ import os
 
 import pytest
 
-from usher_tpu.cli.usher_cli import main as usher_main
-from usher_tpu.cli.usher_sampled_cli import main as sampled_main
-from usher_tpu.io.pbio import load_mat_pb
-from usher_tpu.io.vcf import read_vcf_sites
+from usher_jax.cli.usher_cli import main as usher_main
+from usher_jax.cli.usher_sampled_cli import main as sampled_main
+from usher_jax.io.pbio import load_mat_pb
+from usher_jax.io.vcf import read_vcf_sites
 
 from conftest import REFERENCE_TEST_DIR, REFERENCE_SCRIPTS_DIR
 
@@ -66,7 +66,7 @@ def test_sampled_vcf_placement(built, tmp_path):
 def test_sampled_diff_placement(built, tmp_path):
     # derive a diff for the 5 new samples from the VCF
     vcf = read_vcf_sites(NEW_VCF)
-    from usher_tpu.core.nuc import char_from_nuc_id
+    from usher_jax.core.nuc import char_from_nuc_id
     lines = []
     for j, name in enumerate(vcf.sample_ids):
         lines.append(f">{name}")
@@ -111,10 +111,10 @@ def test_sampled_interleaved_optimization(built, tmp_path):
 def test_min_back_reduces_back_mutations():
     """min_back FS must not increase parsimony and should not add back
     mutations relative to plain FS."""
-    from usher_tpu.core.flat import collect_positions
-    from usher_tpu.io.newick import parse_newick
-    from usher_tpu.ops.sankoff import assign_states_from_vcf
-    from usher_tpu.optimize.fitch import FitchEngine, leaf_masks_from_tree
+    from usher_jax.core.flat import collect_positions
+    from usher_jax.io.newick import parse_newick
+    from usher_jax.ops.sankoff import assign_states_from_vcf
+    from usher_jax.optimize.fitch import FitchEngine, leaf_masks_from_tree
 
     T = parse_newick(GLOBAL_NH)
     vcf = read_vcf_sites(GLOBAL_VCF)
@@ -146,8 +146,8 @@ def test_min_back_reduces_back_mutations():
 def test_sampled_subtrees_and_sort3(tmp_path):
     """-A sort, -K single subtree, clades passthrough on the sampled CLI."""
     import os
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.usher_sampled_cli import main as sampled_main
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_sampled_cli import main as sampled_main
     scripts = REFERENCE_SCRIPTS_DIR
     if not os.path.exists(os.path.join(scripts, "testBranchLen2.nwk")):
         import pytest
@@ -178,8 +178,8 @@ def test_sampled_multiple_placements(tmp_path):
     scripts = REFERENCE_SCRIPTS_DIR
     if not os.path.exists(os.path.join(scripts, "testBranchLen2.nwk")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.usher_sampled_cli import main as sampled_main
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_sampled_cli import main as sampled_main
     build = str(tmp_path / "b")
     pb = os.path.join(build, "o.pb")
     assert usher_main(["-t", os.path.join(scripts, "testBranchLen2.nwk"),
@@ -206,8 +206,8 @@ def test_sampled_bigmat_engine(tmp_path):
     scripts = REFERENCE_SCRIPTS_DIR
     if not os.path.exists(os.path.join(scripts, "testBranchLen2.nwk")):
         pytest.skip("reference fixtures unavailable")
-    from usher_tpu.cli.usher_cli import main as usher_main
-    from usher_tpu.cli.usher_sampled_cli import main as sampled_main
+    from usher_jax.cli.usher_cli import main as usher_main
+    from usher_jax.cli.usher_sampled_cli import main as sampled_main
     build = str(tmp_path / "b")
     pb = os.path.join(build, "o.pb")
     assert usher_main(["-t", os.path.join(scripts, "testBranchLen2.nwk"),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""usher-tpu workflow runner: the reference Snakefile's pipelines, natively.
+"""usher-jax workflow runner: the reference Snakefile's pipelines, natively.
 
 Mirrors workflows/Snakefile (reference): one command chains sample
 preparation, placement, and the requested analysis.  Run types
@@ -138,7 +138,7 @@ class Pipeline:
         _need(self.args, ["fasta"])
         path = self.out("aligned_seqs.vcf")
         if not os.path.exists(path):
-            from usher_tpu.io.fatovcf import fa_to_vcf, read_fasta
+            from usher_jax.io.fatovcf import fa_to_vcf, read_fasta
             fasta = self._maybe_align()
             if self.args.ref and not self.args.align:
                 # prepend the reference record (rule align_seqs output
@@ -164,7 +164,7 @@ class Pipeline:
             return path
         names: list[str] = []
         if self.args.fasta:
-            from usher_tpu.io.fatovcf import read_fasta
+            from usher_jax.io.fatovcf import read_fasta
             names = [n for n, _ in read_fasta(self.args.fasta)]
         else:
             import gzip
@@ -183,7 +183,7 @@ class Pipeline:
         _need(self.args, ["pb"])
         updated = self.out("user_seqs.pb")
         if not os.path.exists(updated):
-            from usher_tpu.cli.usher_cli import main as usher_main
+            from usher_jax.cli.usher_cli import main as usher_main
             rc = usher_main(["-i", self.args.pb, "-v", self.vcf(),
                              "-o", updated, "-d", self.outdir])
             if rc != 0:
@@ -193,7 +193,7 @@ class Pipeline:
     # rule introduce (Snakefile:133-146)
     def introduce(self):
         pb = self.usher()
-        from usher_tpu.cli.matutils_cli import main as mu
+        from usher_jax.cli.matutils_cli import main as mu
         rc = mu(["introduce", "-i", pb, "-s", self.sample_ids(),
                  "--cluster-output", self.out("user_seqs.clusters.txt"),
                  "--full-output", self.out("user_seqs.introductions.txt")])
@@ -204,7 +204,7 @@ class Pipeline:
     def translate(self):
         _need(self.args, ["gtf", "ref"])
         pb = self.usher()
-        from usher_tpu.cli.matutils_cli import main as mu
+        from usher_jax.cli.matutils_cli import main as mu
         rc = mu(["summary", "-i", pb,
                  "-t", self.out("user_seqs.translation.tsv"),
                  "-g", self.args.gtf, "-f", self.args.ref,
@@ -215,7 +215,7 @@ class Pipeline:
     # rule extract_subtrees (Snakefile:185-199)
     def matUtils(self):
         pb = self.usher()
-        from usher_tpu.cli.matutils_cli import main as mu
+        from usher_jax.cli.matutils_cli import main as mu
         cmd = ["extract", "-i", pb, "-s", self.sample_ids(),
                "-N", "500", "-j", "user", "-d", self.outdir]
         if self.args.metadata:
@@ -228,7 +228,7 @@ class Pipeline:
     def taxodium(self):
         _need(self.args, ["gtf", "ref"])
         pb = self.usher()
-        from usher_tpu.cli.matutils_cli import main as mu
+        from usher_jax.cli.matutils_cli import main as mu
         cmd = ["extract", "-i", pb, "-l", self.out("user_seqs.taxodium.pb"),
                "-g", self.args.gtf, "-f", self.args.ref, "-d", "."]
         if self.args.metadata:
@@ -240,7 +240,7 @@ class Pipeline:
     # rule ripples (Snakefile:217-228)
     def ripples(self):
         pb = self.usher()
-        from usher_tpu.cli.ripples_cli import main as rp
+        from usher_jax.cli.ripples_cli import main as rp
         rc = rp(["-i", pb, "-s", self.sample_ids(), "-d", self.outdir])
         if rc:
             raise SystemExit(rc)
@@ -256,7 +256,7 @@ class Pipeline:
         per-sample rates use true sample counts."""
         _need(self.args, ["pb"])
         pb = self.usher()
-        from usher_tpu.cli.matutils_cli import main as mu
+        from usher_jax.cli.matutils_cli import main as mu
         user_m = self.out("parsimony_user_data.txt")
         pub_m = self.out("parsimony_public.txt")
         pub_s = self.out("samples_public.txt")
@@ -299,7 +299,7 @@ class Pipeline:
     # rules outbreak_samples + outbreak (Snakefile:286-310)
     def outbreak(self):
         pb = self.usher()
-        from usher_tpu.cli.matutils_cli import main as mu
+        from usher_jax.cli.matutils_cli import main as mu
         rc = mu(["extract", "-i", pb, "-s", self.sample_ids(),
                  "-o", "user_seqs.outbreak.pb",
                  "-j", "user_seqs.outbreak.json",
@@ -313,7 +313,7 @@ class Pipeline:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        prog="usher-tpu-workflow",
+        prog="usher-jax-workflow",
         description="Run the usher/matUtils/ripples pipelines "
                     "(workflows/Snakefile equivalent).")
     p.add_argument("--runtype", required=True, choices=RUNTYPES + ["augur"])
